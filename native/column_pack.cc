@@ -1,4 +1,4 @@
-// Host-side column data marshaling for ocean_bgc_tpu.
+// Host-side column data marshaling for ocean_bgc.
 //
 // The reference library receives level-major Fortran arrays
 // (k, column[, tracer]) filled by its host model (SURVEY.md par.1

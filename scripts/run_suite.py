@@ -4,10 +4,8 @@ Why: this image's XLA:CPU backend ships AOT kernels compiled for a
 different host (the cpu_aot_loader feature-mismatch warnings at import,
 "could lead to execution errors such as SIGILL"), and long-lived suite
 processes nondeterministically segfault inside LLVM during a LATE
-`backend_compile_and_load` — the same crash class that forced
-tests/test_pallas_step.py into a fresh interpreter (commit e3ce765) and
-that killed a round-4 full-suite run inside test_run_model_cli.py
-(green standalone).  Nothing in the repo controls the image's jax
+`backend_compile_and_load` (one such crash killed a full-suite run
+inside test_run_model_cli.py, green standalone).  Nothing in the repo controls the image's jax
 wheels, so the suite-level mitigation is structural: bound every pytest
 process's lifetime by splitting the files into chunks, each run in its
 own interpreter.  A crashed chunk reports its files so the flake is
@@ -57,9 +55,6 @@ def main() -> int:
     args = ap.parse_args()
 
     files = sorted(glob.glob(os.path.join(REPO, "tests", "test_*.py")))
-    # test_pallas_step.py is excluded from direct collection by conftest
-    # (its _isolated delegator runs it); keep the exclusion here too
-    files = [f for f in files if not f.endswith("test_pallas_step.py")]
     if args.files:
         keep = set(args.files)
         files = [f for f in files if os.path.basename(f) in keep]

@@ -3,7 +3,7 @@
 Invoked as ``python tests/mp_worker_distributed.py <pid> <nproc> <port>
 <outdir> <devices_per_proc>``.  Each process owns ``devices_per_proc``
 virtual CPU devices; together they form the global columns mesh — the
-actual multi-host code path of ``ocean_bgc_tpu.parallel.distributed``
+actual multi-host code path of ``ocean_bgc.parallel.distributed``
 (SURVEY.md §4/§5), not the single-process virtual mesh.
 
 Each process:
@@ -40,12 +40,12 @@ def main():
 
     import numpy as np
 
-    import ocean_bgc_tpu  # noqa: F401  (enables x64)
-    from ocean_bgc_tpu.parallel import distributed as dist
-    from ocean_bgc_tpu.parallel import make_sharded_step
-    from ocean_bgc_tpu.parallel.sharding import GLOBAL_SUM_DIAGS
-    from ocean_bgc_tpu.params import ModelParams
-    from ocean_bgc_tpu.utils.synthetic import synthetic_world
+    import ocean_bgc  # noqa: F401  (enables x64)
+    from ocean_bgc.parallel import distributed as dist
+    from ocean_bgc.parallel import make_sharded_step
+    from ocean_bgc.parallel.sharding import GLOBAL_SUM_DIAGS
+    from ocean_bgc.params import ModelParams
+    from ocean_bgc.utils.synthetic import synthetic_world
 
     dist.initialize(coordinator_address=f"127.0.0.1:{port}",
                     num_processes=nproc, process_id=pid)
@@ -73,7 +73,7 @@ def main():
     jax.block_until_ready(final)
 
     # ---- sharded checkpoint round-trip (multi-host restart contract) ----
-    from ocean_bgc_tpu.utils import checkpoint as ckpt
+    from ocean_bgc.utils import checkpoint as ckpt
     ckpt_path = os.path.join(outdir, "ckpt_sharded")
     ckpt.save(ckpt_path, final, step=2, use_orbax=True)
     restored, rstep = ckpt.restore(ckpt_path, mesh=mesh)
@@ -100,7 +100,7 @@ def main():
     # (the consumer of make_sharded_step(local_diags=...); VERDICT r4
     # item 3) -- includes a psum'd health counter to exercise the
     # replicated-leaf path ----
-    from ocean_bgc_tpu.utils.history import write_history_shards
+    from ocean_bgc.utils.history import write_history_shards
 
     LOCAL_DIAGS = ("NITRIF", "pco2surf", "POC_FLUX_IN",
                    "health_poc_error_cells")
@@ -114,8 +114,8 @@ def main():
     # sharded forced run (hold interp, per-record env cache) ->
     # selective history + health psums -> checkpoint again -> bitwise
     # continuation.  The composition a real deployment runs. ----
-    from ocean_bgc_tpu.parallel.sharding import make_sharded_forced_run
-    from ocean_bgc_tpu.models.forcing_series import stack_forcings
+    from ocean_bgc.parallel.sharding import make_sharded_forced_run
+    from ocean_bgc.models.forcing_series import stack_forcings
     import dataclasses as _dc
 
     forcing2 = _dc.replace(

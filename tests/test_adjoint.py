@@ -11,21 +11,21 @@ import dataclasses
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.adjoint import (
+from ocean_bgc.models.adjoint import (
     calibrate,
     get_param,
     override_params,
     parameter_sensitivities,
     run_diff,
 )
-from ocean_bgc_tpu.models.coupled import run
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as BT
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import run
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as BT
+from ocean_bgc.utils.synthetic import synthetic_world
 
 DT = 3600.0
 
@@ -117,7 +117,7 @@ def test_adjoint_shards_like_the_forward_model():
     """The parameter gradient computed on the 8-device columns mesh equals
     the single-device gradient — the psum over shards is inserted by XLA,
     exactly as the forward model's sharding story promises."""
-    from ocean_bgc_tpu.parallel import make_mesh, shard_world
+    from ocean_bgc.parallel import make_mesh, shard_world
 
     state, grid, forcing = world(ncol=16)
     template = ModelParams()
@@ -145,7 +145,7 @@ def test_grad_through_forced_run():
     climate-sensitivity-style question the reference cannot ask)."""
     import dataclasses
 
-    from ocean_bgc_tpu.models.forcing_series import (
+    from ocean_bgc.models.forcing_series import (
         run_forced, stack_forcings)
 
     nlev, ncol, nrec = 5, 6, 3

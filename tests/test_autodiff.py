@@ -7,14 +7,14 @@ full coupled step — enabling parameter sensitivity and data assimilation.
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.ops import carbonate as carb
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.ops import carbonate as carb
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_ph_solver_gradient_matches_finite_difference():

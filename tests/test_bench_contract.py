@@ -1,14 +1,12 @@
-"""The driver contract of bench.py (VERDICT round 3, weak #1).
+"""The output contract of bench.py.
 
-Round 3's benchmark artifact was empty because the default invocation
-chained enough uncacheable XLA compiles to blow the driver's timeout.
-These tests pin the structural fixes: the default run emits exactly ONE
-parseable JSON line with the metric-contract fields, no quad configs,
-and the wall-clock budget (measured from process start) downgrades the
-CPU baseline to the pinned fallback instead of risking the artifact.
+The default run emits exactly ONE parseable JSON line with the
+metric-contract fields and no quad configs, and the wall-clock budget
+(measured from process start) skips the CPU baseline instead of
+risking the artifact.
 
-Runs bench.py exactly as the driver does (a subprocess), on CPU with
-tiny shapes so the whole test costs seconds of compile.
+Runs bench.py as a subprocess, on CPU with tiny shapes so the whole
+test costs seconds of compile.
 """
 
 import json
@@ -44,8 +42,7 @@ def test_default_invocation_single_line_no_quad():
                   "baseline"):
         assert field in out, field
     assert out["value"] > 0
-    # the quad must be OPT-IN: its extra compiles are what emptied the
-    # round-3 artifact
+    # the quad must be OPT-IN: each config is one more compile
     assert "configs" not in out
 
 
@@ -53,6 +50,6 @@ def test_budget_exhaustion_falls_back_to_pinned_baseline():
     out = _run_bench({"BENCH_BUDGET_S": "0"})
     # the primary measurement still lands (it IS the artifact) ...
     assert out["value"] > 0
-    # ... and the CPU baseline downgrades to the pinned round-2 number
-    assert "pinned" in out["baseline"]
-    assert out["vs_baseline"] > 0
+    # ... and with no live CPU baseline there is no ratio
+    assert out["vs_baseline"] is None
+    assert "skipped" in out["baseline"]

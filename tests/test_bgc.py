@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.bgc import bgc_source_sink
-from ocean_bgc_tpu.params import BGCParams
-from ocean_bgc_tpu.state import BGCForcing, BGCTracers as T, ColumnGrid
+from ocean_bgc.ops.bgc import bgc_source_sink
+from ocean_bgc.params import BGCParams
+from ocean_bgc.state import BGCForcing, BGCTracers as T, ColumnGrid
 from tests.oracle import bgc_ref
 
 
@@ -192,7 +192,7 @@ def test_level_scan_unroll_ulp_equivalent(rng, monkeypatch):
     unrolled body, so results agree to a few ulps (measured max 4e-15
     relative), not bitwise.  The accuracy contract (allclose vs oracle)
     is unaffected; this pins the deviation at the ulp level."""
-    import ocean_bgc_tpu.ops.bgc as bgc_mod
+    import ocean_bgc.ops.bgc as bgc_mod
 
     trc, grid, forcing, params, ph_prev, ph_alt = make_inputs(rng)
     outs = []
@@ -211,7 +211,7 @@ def test_nitrif_taper_extreme_par_out(rng):
     representable regime the 1e-37 log floor was added around
     (ops/bgc.py ~:873, ADVICE round 3): a single cell of optical depth
     ~74 puts par_out near 1e-30 — far below any physical value yet
-    comfortably above the TPU f64-emulation flush threshold — and the
+    comfortably above the float32 flush threshold (~1e-38) — and the
     floored CPU forward must still match the floor-free oracle formula
     (BGC_mod.F90:1552-1560) through the PAR-path tolerance."""
     import math

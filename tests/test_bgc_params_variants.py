@@ -4,11 +4,11 @@ import dataclasses
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.bgc import bgc_source_sink
-from ocean_bgc_tpu.params import BGCParams
+from ocean_bgc.ops.bgc import bgc_source_sink
+from ocean_bgc.params import BGCParams
 from tests.oracle import bgc_ref
 from tests.test_bgc import _forcing_dict, _grid_dict, make_inputs
 

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401  (enables x64)
+import ocean_bgc  # noqa: F401  (enables x64)
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops import carbonate as carb
+from ocean_bgc.ops import carbonate as carb
 from tests.oracle import carbonate_ref as ref
 
 
@@ -203,9 +203,9 @@ def test_warm_brackets_h_contract(rng):
     root from either bracket agrees to solver tolerance."""
     import jax.numpy as jnp
 
-    from ocean_bgc_tpu.constants import (DEL_PH, PHHI_3D_INIT,
-                                         PHLO_3D_INIT)
-    from ocean_bgc_tpu.ops.carbonate import co3_terms, warm_brackets_h
+    from ocean_bgc.constants import (DEL_PH, PHHI_3D_INIT,
+                                     PHLO_3D_INIT)
+    from ocean_bgc.ops.carbonate import co3_terms, warm_brackets_h
 
     ph = jnp.asarray(np.concatenate([
         np.zeros(4),                       # cold sentinel lanes
@@ -240,7 +240,7 @@ def test_warm_brackets_h_contract(rng):
                          ph_prev - DEL_PH, ph_prev + DEL_PH, False)
     # reproduce via the one-pow path: feed the H-space bracket through
     # co3_terms_dual's brackets kwarg
-    from ocean_bgc_tpu.ops.carbonate import co3_terms_dual
+    from ocean_bgc.ops.carbonate import co3_terms_dual
     br = warm_brackets_h(ph_prev, PHLO_3D_INIT, PHHI_3D_INIT, DEL_PH)
     (ph_b, *_), _ = co3_terms_dual(depth, temp, salt, dic, alk, po4,
                                    sio3, None, None, None, None, False,
@@ -259,9 +259,9 @@ def test_trusted_fast_path_bitwise(rng):
     bracket phase, also bitwise."""
     import jax.numpy as jnp
 
-    from ocean_bgc_tpu.constants import (DEL_PH, PHHI_3D_INIT,
-                                         PHLO_3D_INIT)
-    from ocean_bgc_tpu.ops.carbonate import (
+    from ocean_bgc.constants import (DEL_PH, PHHI_3D_INIT,
+                                     PHLO_3D_INIT)
+    from ocean_bgc.ops.carbonate import (
         _to_mass_units, carbonate_coeffs, solve_htotal,
         solve_htotal_warm, warm_brackets_h)
 
@@ -306,9 +306,9 @@ def test_x0_seed_same_root_fewer_iterations(rng):
     tolerance level and the iteration reduction."""
     import jax.numpy as jnp
 
-    from ocean_bgc_tpu.constants import (DEL_PH, PHHI_3D_INIT,
-                                         PHLO_3D_INIT)
-    from ocean_bgc_tpu.ops.carbonate import (
+    from ocean_bgc.constants import (DEL_PH, PHHI_3D_INIT,
+                                     PHLO_3D_INIT)
+    from ocean_bgc.ops.carbonate import (
         _to_mass_units, carbonate_coeffs, solve_htotal_stats,
         warm_brackets_h)
 

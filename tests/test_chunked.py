@@ -2,13 +2,13 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 
-from ocean_bgc_tpu.models.chunked import host_world_like, step_chunked
-from ocean_bgc_tpu.models.coupled import run
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.chunked import host_world_like, step_chunked
+from ocean_bgc.models.coupled import run
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_chunked_matches_unchunked():

@@ -2,14 +2,14 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import run, step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import run, step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 
 DT = 3600.0  # 1 h
 
@@ -163,7 +163,7 @@ def test_diag_filter_subset_bitwise(rng):
     XLA materializes, never changes arithmetic); unknown names raise."""
     import pytest
 
-    from ocean_bgc_tpu.utils.synthetic import synthetic_world
+    from ocean_bgc.utils.synthetic import synthetic_world
 
     state, grid, forcing = synthetic_world(nlev=6, ncol=12, seed=9,
                                            ragged=True)
@@ -194,7 +194,7 @@ def test_diag_filter_guard_rails(rng):
     every step)."""
     import pytest
 
-    from ocean_bgc_tpu.utils.synthetic import synthetic_world
+    from ocean_bgc.utils.synthetic import synthetic_world
 
     state, grid, forcing = synthetic_world(nlev=4, ncol=8, seed=5)
     params = ModelParams()

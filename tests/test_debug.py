@@ -5,14 +5,14 @@ import dataclasses
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.debug import (checked_step, solver_health,
-                                       validate_state)
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.debug import (checked_step, solver_health,
+                                   validate_state)
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_validate_state_clean():
@@ -65,10 +65,10 @@ def test_checked_step_raises_on_corruption():
 
 def test_poc_bounds_report():
     """The poc_error observable (BGC_mod.F90:2296-2383 equivalent)."""
-    from ocean_bgc_tpu.models.coupled import step
-    from ocean_bgc_tpu.params import ModelParams
-    from ocean_bgc_tpu.utils.debug import poc_bounds_report
-    from ocean_bgc_tpu.utils.synthetic import synthetic_world
+    from ocean_bgc.models.coupled import step
+    from ocean_bgc.params import ModelParams
+    from ocean_bgc.utils.debug import poc_bounds_report
+    from ocean_bgc.utils.synthetic import synthetic_world
 
     state, grid, forcing = synthetic_world(nlev=6, ncol=8, seed=91)
     _, diags = step(state, grid, forcing, ModelParams(), 3600.0)

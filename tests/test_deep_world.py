@@ -21,16 +21,16 @@ import os
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.constants import LYSOCLINE_DEPTH, SPD
-from ocean_bgc_tpu.models.coupled import run
-from ocean_bgc_tpu.ops.bgc import bgc_source_sink
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.constants import LYSOCLINE_DEPTH, SPD
+from ocean_bgc.models.coupled import run
+from ocean_bgc.ops.bgc import bgc_source_sink
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 from tests.oracle import bgc_ref
 from tests.oracle.coupled_ref import coupled_step_ref
 

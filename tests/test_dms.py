@@ -2,12 +2,12 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.dms import dms_source_sink
-from ocean_bgc_tpu.params import DMSParams
-from ocean_bgc_tpu.state import DMSTracers as DT
+from ocean_bgc.ops.dms import dms_source_sink
+from ocean_bgc.params import DMSParams
+from ocean_bgc.state import DMSTracers as DT
 from tests.oracle import trace_gas_ref as ref
 
 
@@ -89,7 +89,7 @@ def test_dms_diag_registry_complete(rng):
     _, diags = dms_source_sink(
         jnp.asarray(tracers), jnp.asarray(dz), jnp.asarray(active),
         jnp.asarray(sst), jnp.asarray(sw), params)
-    from ocean_bgc_tpu.ops.dms import DMS_DIAG_NAMES
+    from ocean_bgc.ops.dms import DMS_DIAG_NAMES
     assert set(diags) == set(DMS_DIAG_NAMES)
     assert len(DMS_DIAG_NAMES) == 27   # DMS_parms.F90:125-154
 
@@ -109,7 +109,7 @@ def test_dms_uv_field_matches_sequential_recurrence(rng):
     for k in ("UV_in", "UV_out", "UV_avg"):
         assert k in diags
 
-    from ocean_bgc_tpu.constants import F_QSW_PAR_DMS
+    from ocean_bgc.constants import F_QSW_PAR_DMS
     clip = np.maximum(tracers, 0.0)
     want_in = np.zeros((nlev, ncol))
     want_out = np.zeros((nlev, ncol))

@@ -29,14 +29,14 @@ import dataclasses
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.constants import DPS
-from ocean_bgc_tpu.ops.bgc import bgc_source_sink
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.constants import DPS
+from ocean_bgc.ops.bgc import bgc_source_sink
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 
 SP, DIAT, DIAZ, PHAEO = 0, 1, 2, 3
 GROUP_C = {SP: T.SPC, DIAT: T.DIATC, DIAZ: T.DIAZC, PHAEO: T.PHAEOC}
@@ -208,7 +208,7 @@ def test_o2_production_stoichiometry_anchors():
     (which the kernel separately charges as 2*NITRIF of consumption,
     BGC_mod.F90:1786-1788).  Diazotrophs are zeroed so the two pure
     regimes are exact."""
-    from ocean_bgc_tpu import constants as c
+    from ocean_bgc import constants as c
     params = ModelParams()
     red = c.PARM_RED_D_C_O2                 # 117/170
     remin = c.PARM_REMIN_D_C_O2             # 117/138

@@ -9,13 +9,13 @@ import dataclasses
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_vmap_ensemble_matches_loop():
@@ -40,6 +40,6 @@ def test_vmap_ensemble_matches_loop():
                                    np.asarray(want), rtol=1e-12, atol=0)
 
     # more light -> more surface carbon fixation -> lower surface DIC
-    from ocean_bgc_tpu.state import BGCTracers as T
+    from ocean_bgc.state import BGCTracers as T
     dic_surf = np.asarray(ensemble)[:, 0, T.DIC, :].mean(axis=1)
     assert dic_surf[0] > dic_surf[-1]

@@ -10,15 +10,15 @@ expression mismatch) fails loudly.
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 import pytest
 
-from ocean_bgc_tpu.models.coupled import run, step
-from ocean_bgc_tpu.ops.bgc import bgc_source_sink, precompute_env
-from ocean_bgc_tpu.params import BGCParams, ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import run, step
+from ocean_bgc.ops.bgc import bgc_source_sink, precompute_env
+from ocean_bgc.params import BGCParams, ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 @pytest.mark.parametrize("dtype", [None, jnp.float32])
@@ -66,7 +66,7 @@ def test_env_cache_ulp_equivalence(dtype, diags):
                                        rtol=rtol, atol=atol, err_msg=k)
 
 
-def test_env_cache_pallas_carbonate():
+def test_env_cache_pallas_carbonate(pallas_interpret):
     """The coefficient-fed Pallas carbonate kernel (interpret mode on
     CPU) agrees with the compute-in-kernel variant to f32 tolerance."""
     state, grid, forcing = synthetic_world(nlev=8, ncol=16, seed=13,
@@ -117,7 +117,7 @@ def test_env_cache_staleness_guard(monkeypatch):
     eagerly and under jit; a fresh cache passes."""
     import dataclasses
 
-    from ocean_bgc_tpu.ops.bgc import check_env_cache
+    from ocean_bgc.ops.bgc import check_env_cache
 
     monkeypatch.setenv("OBGC_CHECK_ENV", "1")
     state, grid, forcing = synthetic_world(nlev=6, ncol=8, seed=4,
@@ -183,13 +183,13 @@ def test_standin_seed_bitwise_invariant_and_faster():
        makes active lanes' iterate sequences independent of
        batchmates);
     2. the batched solver's max iteration count (= the while_loop trip
-       count every step pays) drops to the warm-lane level (measured
-       13 -> 3 on the flagship world, docs/BENCHMARKS.md round 5).
+       count every step pays) drops to the warm-lane level (13 -> 3
+       on the flagship world, scripts/ph_iter_stats.py).
     """
-    from ocean_bgc_tpu import constants as c
-    from ocean_bgc_tpu.ops.carbonate import (
+    from ocean_bgc import constants as c
+    from ocean_bgc.ops.carbonate import (
         _to_mass_units, solve_htotal_stats, warm_brackets_h)
-    from ocean_bgc_tpu.state import BGCTracers as T
+    from ocean_bgc.state import BGCTracers as T
 
     state, grid, forcing = synthetic_world(nlev=12, ncol=64, seed=3,
                                            ragged=True)

@@ -1,9 +1,8 @@
 """Qualification of the opt-in fast-f64 solver path (OBGC_FAST_F64=1).
 
-talk_fast re-associates the TA residual's reciprocals (one division
-instead of eight — float64 division is software-emulated on TPU) and is
-mathematically identical to talk().  It is NOT the bitwise f64 contract
-path: reassociation shifts results by ~1e-15 relative, which perturbs
+talk_fast re-associates the TA residual's reciprocals (four divisions
+instead of eight) and is mathematically identical to talk().  It is
+NOT the bitwise f64 contract path: reassociation shifts results by ~1e-15 relative, which perturbs
 the Newton iterate sequence inside the solver tolerance.  Qualified here
 with the same perturbation-envelope methodology as the fp32 fast path
 (tests/test_fp32_trajectory.py).
@@ -14,20 +13,20 @@ import os
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import run
-from ocean_bgc_tpu.ops.carbonate import (
+from ocean_bgc.models.coupled import run
+from ocean_bgc.ops.carbonate import (
     carbonate_coeffs,
     solve_htotal,
     talk,
     talk_fast,
 )
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 
 NSTEPS = int(os.environ.get("OCEAN_BGC_TRAJ_STEPS_FAST64", "96"))
 DT = 3600.0
@@ -116,15 +115,13 @@ def test_fast_f64_trajectory_within_perturbation_envelope(monkeypatch):
             f"perturbation envelope {bound:.3e}")
 
 
-def test_talk_fast_pair_products_within_tpu_emulation_range(rng):
-    """TPU 'float64' is double-float emulation with only float32's
-    ~1e+/-38 exponent range (measured on v5e: a combined product of all
-    8 TA denominators, ~1e-65, flushed to zero and silently broke the
-    solver — docs/BENCHMARKS.md round 3).  Pin that every
-    _paired_reciprocal product stays within [1e-37, 1e37] over the full
-    coefficient envelope and the widest bracket state the solver can
-    reach, so the CPU suite catches any re-pairing that would break on
-    TPU."""
+def test_talk_fast_pair_products_within_f32_exponent_range(rng):
+    """Every intermediate stays inside float32's ~1e+/-38 exponent range
+    (CLAUDE.md, "Numerics"; a combined product of all 8 TA denominators,
+    ~1e-65, would leave it).  Pin that every _paired_reciprocal product
+    stays within [1e-37, 1e37] over the full coefficient envelope and
+    the widest bracket state the solver can reach, so the suite catches
+    any re-pairing that would leave the range."""
     coeffs, dic, ta, pt, sit = _random_cells(rng, n=8192)
     lo, hi = 1e-37, 1e37
     for ph in (5.0, 6.0, 7.0, 8.0, 9.0, 10.5, 11.0):
@@ -144,7 +141,7 @@ def test_talk_fast_pair_products_within_tpu_emulation_range(rng):
         }
         for name, prod in pairs.items():
             assert (prod > lo).all() and (prod < hi).all(), (
-                f"pair {name} leaves the TPU f64-emulation range at "
+                f"pair {name} leaves the float32 exponent range at "
                 f"pH {ph}: [{prod.min():.3e}, {prod.max():.3e}]")
 
 
@@ -163,19 +160,17 @@ def test_fast_f64_off_is_bitwise_default(monkeypatch):
 
 
 def test_no_sub_emulation_range_literals_in_compute_path():
-    """TPU float64 is double-float emulation with float32's exponent
-    range: any literal below ~1e-38 is EXACTLY ZERO on chip.  Round 3
-    found two real bugs of this class (the single-division TA residual,
-    and a 1e-300 floor under the nitrification-taper log whose flush
-    sent every BGC parameter gradient to NaN on TPU while the CPU suite
-    stayed green — scripts/probe_adjoint_nan2.py).  The chip behavior
-    cannot be reproduced on the CPU backend, so pin the invariant at
-    the source level: no numeric literal in the differentiable compute
-    path may lie below the emulation range."""
+    """Every intermediate stays inside float32's exponent range
+    (CLAUDE.md, "Numerics"): any literal below ~1e-38 is EXACTLY ZERO in
+    float32.  A 1e-300 floor under the nitrification-taper log was once
+    such a bug — its flush sent every BGC parameter gradient to NaN
+    while float64 runs stayed finite.  Float64 tests cannot see it, so
+    pin the invariant at the source level: no numeric literal in the
+    differentiable compute path may lie below that range."""
     import ast
     import pathlib
 
-    root = pathlib.Path(__file__).resolve().parents[1] / "ocean_bgc_tpu"
+    root = pathlib.Path(__file__).resolve().parents[1] / "ocean_bgc"
     offenders = []
     for f in sorted(list(root.glob("ops/*.py"))
                     + list(root.glob("models/*.py"))):

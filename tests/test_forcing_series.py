@@ -4,12 +4,12 @@ import os
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.models.forcing_series import (
+from ocean_bgc.models.coupled import step
+from ocean_bgc.models.forcing_series import (
     forcing_at,
     forcing_record,
     load_forcing_series,
@@ -17,8 +17,8 @@ from ocean_bgc_tpu.models.forcing_series import (
     save_forcing_series,
     stack_forcings,
 )
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 DT = 3600.0
 

@@ -1,14 +1,15 @@
 """Opt-in single-precision fast path: finite, close to f64, and stable."""
 
 import numpy as np
+import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import run, step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import run, step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_fp32_step_close_to_fp64():
@@ -43,22 +44,18 @@ def test_fp32_multi_step_stable():
     assert np.isfinite(trc).all()
 
 
-def test_carbonate_impl_auto_resolution(monkeypatch):
-    """'auto' = pallas only for f32-on-TPU; f64 and CPU stay on the
-    exact-contract XLA path; unknown names rejected."""
-    import jax
-    import pytest
+@pytest.mark.parametrize("backend, want_f32", [
+    ("gpu", "pallas"), ("cpu", "xla")])
+def test_carbonate_impl_auto_resolution(monkeypatch, backend, want_f32):
+    """'auto' = the Pallas kernel only for f32 on a GPU; f64 everywhere
+    and f32 off the GPU stay on the exact-contract XLA path; explicit
+    names pass through; unknown names are rejected."""
+    from ocean_bgc.ops.bgc import resolve_carbonate_impl as r
 
-    from ocean_bgc_tpu.ops.bgc import resolve_carbonate_impl as r
-
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert r("auto", jnp.float32) == want_f32
+    assert r("auto", jnp.float64) == "xla"
     assert r("xla", jnp.float32) == "xla"
     assert r("pallas", jnp.float32) == "pallas"
     with pytest.raises(ValueError):
         r("cuda", jnp.float32)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert r("auto", jnp.float32) == "pallas"
-    assert r("auto", jnp.float64) == "xla"
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert r("auto", jnp.float32) == "xla"
-    assert r("auto", jnp.float64) == "xla"

@@ -1,8 +1,7 @@
-"""Deep-water qualification of the opt-in fp32 fast path (VERDICT r4
-item 2: the 1.5M cols/s f32 headline was qualified only on a 6-level toy
-world; none of the deep branches — lysocline, anoxic bottom, the deep
-particulate-flux decay toward the f32 flush threshold — were inside the
-f32 envelope gate).
+"""Deep-water qualification of the opt-in fp32 fast path (beyond the
+6-level toy world of tests/test_fp32_trajectory.py: the deep branches —
+lysocline, anoxic bottom, the deep particulate-flux decay toward the
+f32 flush threshold — inside the f32 envelope gate).
 
 Three gates on the SAME 60-level branch-firing world as the f64 flagship
 acceptance gate (tests/test_deep_world.py::_deep_world):
@@ -16,10 +15,8 @@ acceptance gate (tests/test_deep_world.py::_deep_world):
    a shelf and a land column;
 3. an explicit RANGE AUDIT of the decaying particulate flux chains
    (BGC_mod.F90:2242-2255, 2336-2365) against IEEE f32's ~1.2e-38
-   normal floor — the same exponent-range failure class that silently
-   zeroed the f64-emulation pH solve in round 3 applies to honest f32
-   with less margin.  Every nonzero deep flux the f64 model produces
-   must sit orders of magnitude above the flush threshold, and the f32
+   normal floor (CLAUDE.md, "Numerics").  Every nonzero deep flux the
+   f64 model produces must sit orders of magnitude above the flush threshold, and the f32
    run must not flush any flux the f64 model keeps materially nonzero.
 
 Default horizon 24 steps; OCEAN_BGC_DEEP_STEPS_F32=96 (or more) for the
@@ -31,16 +28,16 @@ import os
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.constants import LYSOCLINE_DEPTH
-from ocean_bgc_tpu.models.coupled import run, step
-from ocean_bgc_tpu.ops.bgc import bgc_source_sink
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.constants import LYSOCLINE_DEPTH
+from ocean_bgc.models.coupled import run, step
+from ocean_bgc.ops.bgc import bgc_source_sink
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 from tests.test_deep_world import _deep_world
 
 NSTEPS = int(os.environ.get("OCEAN_BGC_DEEP_STEPS_F32", "24"))

@@ -16,14 +16,14 @@ import os
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import run
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import run
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 
 NSTEPS = int(os.environ.get("OCEAN_BGC_TRAJ_STEPS_F32", "96"))
 DT = 3600.0
@@ -64,7 +64,7 @@ def test_fp32_trajectory_within_perturbation_envelope():
         # rounds every operation every step, which chaos amplifies more
         # than one initial kick (measured: worst tracer ~0.7% relative
         # at 96 steps; the qualification statement for the fast path is
-        # "percent-level over days", see docs/BENCHMARKS.md)
+        # "percent-level over days")
         bound = 30.0 * yard[:, idx].max() + 1e-2 * scale + 1e-12
         assert mismatch <= bound, (
             f"tracer {idx}: fp32 mismatch {mismatch:.3e} exceeds "

@@ -2,16 +2,16 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.parallel import distributed as dist
-from ocean_bgc_tpu.parallel import make_mesh, shard_world
-from ocean_bgc_tpu.utils.history import (TavgState, read_history,
-                                         write_history)
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.parallel import distributed as dist
+from ocean_bgc.parallel import make_mesh, shard_world
+from ocean_bgc.utils.history import (TavgState, read_history,
+                                     write_history)
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_tavg_accumulates_means(tmp_path):
@@ -86,7 +86,7 @@ def test_host_local_to_global_roundtrip():
 def test_run_tavg_compiled_matches_manual():
     """run(..., tavg_fields=...) accumulates inside the compiled scan and
     equals the manual per-step mean of the same diagnostics."""
-    from ocean_bgc_tpu.models.coupled import run
+    from ocean_bgc.models.coupled import run
 
     state, grid, forcing = synthetic_world(nlev=5, ncol=6, seed=84)
     params = ModelParams()
@@ -125,7 +125,7 @@ def test_run_tavg_compiled_matches_manual():
 
 
 def test_run_tavg_rejects_unknown_field():
-    from ocean_bgc_tpu.models.coupled import run
+    from ocean_bgc.models.coupled import run
 
     state, grid, forcing = synthetic_world(nlev=4, ncol=4, seed=85)
     import pytest
@@ -138,8 +138,8 @@ def test_run_forced_tavg():
     """run_forced with tavg_fields returns a TavgState over the series."""
     import dataclasses as dc
 
-    from ocean_bgc_tpu.models.forcing_series import (run_forced,
-                                                     stack_forcings)
+    from ocean_bgc.models.forcing_series import (run_forced,
+                                                 stack_forcings)
 
     state, grid, forcing = synthetic_world(nlev=4, ncol=4, seed=86)
     params = ModelParams()
@@ -166,8 +166,8 @@ def test_history_shards_single_process_roundtrip(tmp_path):
     import jax.numpy as jnp
     import pytest
 
-    from ocean_bgc_tpu.utils.history import (stitch_history_shards,
-                                             write_history_shards)
+    from ocean_bgc.utils.history import (stitch_history_shards,
+                                         write_history_shards)
 
     fields = {
         "NITRIF": jnp.arange(24.0).reshape(2, 12),

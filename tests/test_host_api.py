@@ -2,9 +2,9 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
-from ocean_bgc_tpu import host_api
-from ocean_bgc_tpu.state import BGCTracers as BT
+import ocean_bgc  # noqa: F401
+from ocean_bgc import host_api
+from ocean_bgc.state import BGCTracers as BT
 
 
 def _host_world(rng, ncol=6, nlev=8):
@@ -132,8 +132,8 @@ def test_host_tracer_order_adapter_bitwise(rng):
     """A host using its OWN tracer order (the reference's indices-struct
     contract, BGC_parms.F90:81-125) gets bitwise-identical physics via
     the boundary permutation adapter."""
-    from ocean_bgc_tpu.state import (BGC_TRACER_NAMES, DMS_TRACER_NAMES,
-                                     MACROS_TRACER_NAMES)
+    from ocean_bgc.state import (BGC_TRACER_NAMES, DMS_TRACER_NAMES,
+                                 MACROS_TRACER_NAMES)
 
     w = _host_world(rng)
     ncol, nlev = w["dz"].shape
@@ -233,7 +233,7 @@ def test_host_tracer_order_adapter_bitwise(rng):
 def test_host_tracer_index_map_validated():
     import pytest
 
-    from ocean_bgc_tpu.state import BGC_TRACER_NAMES
+    from ocean_bgc.state import BGC_TRACER_NAMES
 
     good = {n: i for i, n in enumerate(BGC_TRACER_NAMES)}
     assert (host_api.tracer_permutation(good, BGC_TRACER_NAMES)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ocean_bgc_tpu.io import host_layout as hl
+from ocean_bgc.io import host_layout as hl
 
 
 def test_native_builds_and_loads():

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.models.integrators import step_rk2, step_rk4
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.models.integrators import step_rk2, step_rk4
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def _advance(step_fn, state, grid, forcing, params, dt, n):

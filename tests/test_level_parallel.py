@@ -14,7 +14,7 @@ and ragged-depth freeze semantics.
 import numpy as np
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.bgc import _par_field, _zsat_search
+from ocean_bgc.ops.bgc import _par_field, _zsat_search
 
 
 def _par_scan_reference(par_surf, total_chl, dz, active):

@@ -39,14 +39,14 @@ import math
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401  (enables x64)
+import ocean_bgc  # noqa: F401  (enables x64)
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.constants import MASS_TO_VOL
-from ocean_bgc_tpu.ops.carbonate import carbonate_coeffs, co3_sat_vals
-from ocean_bgc_tpu.ops.schmidt import (dmssat, o2sat, schmidt_co2,
-                                       schmidt_dms, schmidt_o2)
+from ocean_bgc.constants import MASS_TO_VOL
+from ocean_bgc.ops.carbonate import carbonate_coeffs, co3_sat_vals
+from ocean_bgc.ops.schmidt import (dmssat, o2sat, schmidt_co2,
+                                   schmidt_dms, schmidt_o2)
 
 T25 = jnp.asarray([25.0])
 S35 = jnp.asarray([35.0])

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.macros import macros_source_sink
-from ocean_bgc_tpu.params import MACROSParams
-from ocean_bgc_tpu.state import MACROSTracers as MT
+from ocean_bgc.ops.macros import macros_source_sink
+from ocean_bgc.params import MACROSParams
+from ocean_bgc.state import MACROSTracers as MT
 from tests.oracle import trace_gas_ref as ref
 
 

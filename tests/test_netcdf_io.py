@@ -5,16 +5,16 @@ import os
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.io import netcdf3 as nc
-from ocean_bgc_tpu.io.model_io import (load_world, save_history_netcdf,
-                                       save_world)
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.io import netcdf3 as nc
+from ocean_bgc.io.model_io import (load_world, save_history_netcdf,
+                                   save_world)
+from ocean_bgc.models.coupled import step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_netcdf3_round_trip(tmp_path, rng):

@@ -2,12 +2,12 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
-from ocean_bgc_tpu import constants as c
-from ocean_bgc_tpu.params import (BGCParams, DMSParams, MACROSParams,
-                                  default_autotrophs)
-from ocean_bgc_tpu.state import (BGC_TRACER_NAMES, BGCTracers,
-                                 bgc_tracer_units)
+import ocean_bgc  # noqa: F401
+from ocean_bgc import constants as c
+from ocean_bgc.params import (BGCParams, DMSParams, MACROSParams,
+                              default_autotrophs)
+from ocean_bgc.state import (BGC_TRACER_NAMES, BGCTracers,
+                             bgc_tracer_units)
 
 
 def test_time_conversions():

@@ -1,4 +1,4 @@
-"""The shipped runner (python -m ocean_bgc_tpu.run_model) end to end:
+"""The shipped runner (python -m ocean_bgc.run_model) end to end:
 constant and time-varying forcing, env cache on/off, health counters."""
 
 import json
@@ -6,15 +6,15 @@ import os
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.forcing_series import (
+from ocean_bgc.models.forcing_series import (
     save_forcing_series,
     stack_forcings,
 )
-from ocean_bgc_tpu.run_model import main
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.run_model import main
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def _run(capsys, argv):

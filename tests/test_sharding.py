@@ -1,19 +1,21 @@
 """Column sharding over the virtual 8-device CPU mesh.
 
-Exercises the exact multi-chip path (shard_map + psum) that runs on a TPU
-pod, on the fake mesh (SURVEY.md par.4's multi-host test strategy).
+Exercises the exact multi-device path (shard_map + psum) that runs over
+several GPUs, on the fake mesh (SURVEY.md par.4's multi-host test
+strategy); ``python chip_smoke.py --four-cards`` runs it on four cards.
 """
 
 import numpy as np
+import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.parallel import (make_mesh, make_pjit_step,
-                                    make_sharded_step, shard_world)
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.parallel import (make_mesh, make_pjit_step,
+                                make_sharded_step, shard_world)
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 DT = 3600.0
 
@@ -77,12 +79,12 @@ def test_multi_step_sharded():
 def test_sharded_forced_run_matches_single_device():
     """run_forced under shard_map over the 8-device mesh == unsharded."""
     import jax.numpy as jnp
-    from ocean_bgc_tpu.models.forcing_series import (run_forced,
-                                                     stack_forcings)
-    from ocean_bgc_tpu.parallel import (make_mesh,
-                                        make_sharded_forced_run,
-                                        shard_world)
-    from ocean_bgc_tpu.parallel.sharding import col_sharding_tree
+    from ocean_bgc.models.forcing_series import (run_forced,
+                                                 stack_forcings)
+    from ocean_bgc.parallel import (make_mesh,
+                                    make_sharded_forced_run,
+                                    shard_world)
+    from ocean_bgc.parallel.sharding import col_sharding_tree
 
     nlev, ncol, nrec, nsteps = 4, 16, 3, 4
     worlds = [synthetic_world(nlev=nlev, ncol=ncol, seed=300 + r,
@@ -121,7 +123,7 @@ def test_sharded_forced_run_matches_single_device():
 
     # A/B: the GSPMD twin (make_pjit_forced_run — validation harness,
     # see its docstring) derives the same partitioned program
-    from ocean_bgc_tpu.parallel import make_pjit_forced_run
+    from ocean_bgc.parallel import make_pjit_forced_run
     fn_pj = make_pjit_forced_run(mesh, params, 3600.0, nsteps,
                                  record_dt)
     got_pj = fn_pj(state_s, grid_s, series_s)
@@ -137,9 +139,9 @@ def test_sharded_local_diags_match_single_device():
     the psum'd global sums still replicate."""
     from jax.sharding import NamedSharding
 
-    from ocean_bgc_tpu.models.coupled import step as plain_step
-    from ocean_bgc_tpu.parallel.sharding import (GLOBAL_SUM_DIAGS,
-                                                 _col_spec)
+    from ocean_bgc.models.coupled import step as plain_step
+    from ocean_bgc.parallel.sharding import (GLOBAL_SUM_DIAGS,
+                                             _col_spec)
 
     ndev = len(jax.devices())
     state, grid, forcing = synthetic_world(nlev=6, ncol=16 * ndev,
@@ -164,3 +166,64 @@ def test_sharded_local_diags_match_single_device():
         np.testing.assert_allclose(np.asarray(arr),
                                    np.asarray(want[name]),
                                    rtol=1e-12, atol=1e-20, err_msg=name)
+
+
+def test_sharded_local_diags_global_sum_field():
+    """A GLOBAL_SUM_DIAGS name selected in local_diags comes back as its
+    column-sharded field (whose host sum is the psum'd total), not as
+    the replicated scalar."""
+    from ocean_bgc.parallel.sharding import _col_spec
+
+    state, grid, forcing = synthetic_world(nlev=6, ncol=64, seed=32,
+                                           ragged=True)
+    mesh = make_mesh()
+    sharded = shard_world(state, grid, forcing, mesh)
+    fn = make_sharded_step(mesh, ModelParams(), DT, compute_diags=True,
+                           health=True,
+                           local_diags=("photoC_TOT_zint",
+                                        "health_poc_error_cells"))
+    _, gsums, local = fn(*sharded)
+    field = local["photoC_TOT_zint"]
+    assert field.shape == (64,)
+    assert field.sharding.spec == _col_spec(field)
+    np.testing.assert_allclose(float(np.sum(np.asarray(field))),
+                               float(gsums["photoC_TOT_zint"]), rtol=1e-12)
+    assert local["health_poc_error_cells"].shape == ()
+
+
+def test_distributed_initialize_single_process_is_noop(monkeypatch):
+    """No arguments and no cluster environment: a single process, so
+    initialize() decides explicitly to do nothing."""
+    from ocean_bgc.parallel import distributed as dist
+
+    def never(**kw):
+        raise AssertionError("jax.distributed.initialize was called")
+
+    monkeypatch.setattr(dist, "_cluster_env_present", lambda: False)
+    monkeypatch.setattr(jax.distributed, "initialize", never)
+    assert dist.initialize() is None
+
+
+@pytest.mark.parametrize("cluster, kwargs", [
+    (False, dict(coordinator_address="localhost:1", num_processes=2,
+                 process_id=0)),
+    (True, {}),
+])
+def test_distributed_initialize_failure_propagates(monkeypatch, cluster,
+                                                   kwargs):
+    """With arguments, or inside a cluster environment, the call goes to
+    jax.distributed.initialize and its failure is not swallowed."""
+    from ocean_bgc.parallel import distributed as dist
+
+    seen = {}
+
+    def failing(**kw):
+        seen.update(kw)
+        raise RuntimeError("coordinator unreachable")
+
+    monkeypatch.setattr(dist, "_cluster_env_present", lambda: cluster)
+    monkeypatch.setattr(jax.distributed, "initialize", failing)
+    with pytest.raises(RuntimeError, match="unreachable"):
+        dist.initialize(**kwargs)
+    assert seen == {**dict(coordinator_address=None, num_processes=None,
+                           process_id=None), **kwargs}

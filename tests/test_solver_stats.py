@@ -3,11 +3,11 @@ reference's documented behavior, co2calc.F90:858-863)."""
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.carbonate import (carbonate_coeffs, comp_htotal,
-                                         solve_htotal_stats, _to_mass_units)
+from ocean_bgc.ops.carbonate import (carbonate_coeffs, comp_htotal,
+                                     solve_htotal_stats, _to_mass_units)
 
 
 def test_warm_start_halves_iterations(rng):

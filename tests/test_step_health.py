@@ -11,14 +11,14 @@ import dataclasses
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 
 DT = 3600.0
 HKEYS = ("health_solver_nonconverged_cells", "health_poc_error_cells")
@@ -66,7 +66,7 @@ def test_health_poc_counter_matches_debug_report():
     """The in-graph poc_error counter equals the post-hoc
     utils/debug.poc_bounds_report computed from the emitted production
     diagnostics (same formula, BGC_mod.F90:2296-2297)."""
-    from ocean_bgc_tpu.utils.debug import poc_bounds_report
+    from ocean_bgc.utils.debug import poc_bounds_report
 
     state, grid, forcing = synthetic_world(nlev=10, ncol=12, seed=9,
                                            ragged=True)
@@ -78,7 +78,7 @@ def test_health_poc_counter_matches_debug_report():
     # the debug report scans ALL cells; mask to active ones like the
     # counter does
     active = np.asarray(grid.active_mask())
-    from ocean_bgc_tpu.ops.particulates import RHO_CACO3, RHO_SIO2
+    from ocean_bgc.ops.particulates import RHO_CACO3, RHO_SIO2
     avail = (np.asarray(d["POC_PROD"])
              - RHO_CACO3 * np.asarray(d["CaCO3_PROD"])
              - RHO_SIO2 * np.asarray(d["SiO2_PROD"]))
@@ -91,8 +91,8 @@ def test_health_sharded_psum():
     """make_sharded_step(health=True): the psum'd global counters equal
     the unsharded ones, with compute_diags=False (the production
     shape)."""
-    from ocean_bgc_tpu.parallel import (make_mesh, make_sharded_step,
-                                        shard_world)
+    from ocean_bgc.parallel import (make_mesh, make_sharded_step,
+                                    shard_world)
 
     state, grid, forcing = synthetic_world(nlev=6, ncol=16, seed=3,
                                            ragged=True)

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax.numpy as jnp
 
-from ocean_bgc_tpu.ops.schmidt import o2sat
-from ocean_bgc_tpu.ops.surface import bgc_surface_fluxes, dms_surface_fluxes
-from ocean_bgc_tpu.params import BGCParams, DMSParams
-from ocean_bgc_tpu.state import BGCForcing, BGCTracers as T
+from ocean_bgc.ops.schmidt import o2sat
+from ocean_bgc.ops.surface import bgc_surface_fluxes, dms_surface_fluxes
+from ocean_bgc.params import BGCParams, DMSParams
+from ocean_bgc.state import BGCForcing, BGCTracers as T
 from tests.oracle import surface_ref as ref
 
 

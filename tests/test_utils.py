@@ -6,15 +6,15 @@ import os
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 
-from ocean_bgc_tpu.models.coupled import step
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils import checkpoint as ckpt
-from ocean_bgc_tpu.utils.config import (params_from_dict, params_from_toml,
-                                        params_to_dict)
-from ocean_bgc_tpu.utils.diag import coupled_registry
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import step
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils import checkpoint as ckpt
+from ocean_bgc.utils.config import (params_from_dict, params_from_toml,
+                                    params_to_dict)
+from ocean_bgc.utils.diag import coupled_registry
+from ocean_bgc.utils.synthetic import synthetic_world
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -118,9 +118,9 @@ def test_checkpoint_sharded_restore_single_process(tmp_path, rng):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ocean_bgc_tpu.parallel import make_mesh, shard_world
-    from ocean_bgc_tpu.utils import checkpoint as ckpt
-    from ocean_bgc_tpu.utils.synthetic import synthetic_world
+    from ocean_bgc.parallel import make_mesh, shard_world
+    from ocean_bgc.utils import checkpoint as ckpt
+    from ocean_bgc.utils.synthetic import synthetic_world
 
     state, grid, forcing = synthetic_world(nlev=4, ncol=16, seed=11)
     mesh = make_mesh()
@@ -135,3 +135,29 @@ def test_checkpoint_sharded_restore_single_process(tmp_path, rng):
         assert isinstance(b.sharding, NamedSharding)
         want = P(*([None] * (b.ndim - 1) + ["columns"]))
         assert b.sharding.spec == want, (b.shape, b.sharding.spec)
+
+
+@pytest.mark.parametrize("env_dir", [None, "cache_here"])
+def test_compile_cache_placement(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins when set, and nothing else is
+    configured; otherwise the cache sits at <checkout>/.jax_cache."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["PYTHONPATH"] = repo
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / env_dir)
+    code = ("import jax\n"
+            "from ocean_bgc.utils.compile_cache import enable_compile_cache\n"
+            "print(enable_compile_cache())\n"
+            "print(jax.config.jax_compilation_cache_dir)\n")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120,
+                       check=True)
+    returned, configured = r.stdout.split()
+    want = (str(tmp_path / env_dir) if env_dir is not None
+            else os.path.join(repo, ".jax_cache"))
+    assert returned == configured == want

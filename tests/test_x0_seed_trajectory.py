@@ -9,9 +9,6 @@ perturbation-envelope methodology (tests/test_fp32_trajectory.py): the
 x0 trajectory's divergence from the default f64 trajectory must stay
 within the model's own response to a comparable initial-condition
 perturbation — solver-tolerance noise, not bias.
-
-Measured value: +15% flagship columns/s on the flat bench world, +18%
-vs the round-4 scoreboard (docs/BENCHMARKS.md round-5 findings).
 """
 
 import dataclasses
@@ -20,13 +17,13 @@ import os
 import numpy as np
 import pytest
 
-import ocean_bgc_tpu  # noqa: F401
+import ocean_bgc  # noqa: F401
 import jax
 
-from ocean_bgc_tpu.models.coupled import run
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.state import BGCTracers as T
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+from ocean_bgc.models.coupled import run
+from ocean_bgc.params import ModelParams
+from ocean_bgc.state import BGCTracers as T
+from ocean_bgc.utils.synthetic import synthetic_world
 
 NSTEPS = int(os.environ.get("OCEAN_BGC_TRAJ_STEPS_X0", "48"))
 DT = 3600.0

@@ -1,12 +1,11 @@
 """Mechanical proof of the scaling story: the compiled sharded step
 contains ZERO collective ops.
 
-The >90% weak-scaling gate (BASELINE.md) cannot be *measured* on this
-image (no multi-chip hardware; the virtual CPU mesh under-reads because
-all 8 "devices" share one socket, SCALING_r03.json).  But the argument
-behind the gate — columns never communicate, so the step program has no
-cross-chip traffic at all, and the only collective anywhere is the
-opt-in global-diagnostics psum (SURVEY.md par.2 "Global reductions:
+The >90% weak-scaling gate (BASELINE.md) cannot be *measured* on the
+virtual CPU mesh, which under-reads because all 8 "devices" share one
+socket.  But the argument behind the gate — columns never communicate,
+so the step program has no cross-device traffic at all, and the only
+collective anywhere is the opt-in global-diagnostics psum (SURVEY.md par.2 "Global reductions:
 none in-library") — is a property of the compiled program, not of
 hardware.  These tests pin it at the IR level: grep the StableHLO and
 the compiled HLO of the production sharded step for every collective op
@@ -20,11 +19,11 @@ and still no other collective kind — the per-step cross-ICI traffic is
 
 import re
 
-import ocean_bgc_tpu  # noqa: F401
-from ocean_bgc_tpu.parallel import make_mesh, make_sharded_step, shard_world
-from ocean_bgc_tpu.parallel.sharding import GLOBAL_SUM_DIAGS, HEALTH_DIAGS
-from ocean_bgc_tpu.params import ModelParams
-from ocean_bgc_tpu.utils.synthetic import synthetic_world
+import ocean_bgc  # noqa: F401
+from ocean_bgc.parallel import make_mesh, make_sharded_step, shard_world
+from ocean_bgc.parallel.sharding import GLOBAL_SUM_DIAGS, HEALTH_DIAGS
+from ocean_bgc.params import ModelParams
+from ocean_bgc.utils.synthetic import synthetic_world
 
 _STABLEHLO_COLLECTIVES = (
     "stablehlo.all_reduce", "stablehlo.all_gather", "stablehlo.all_to_all",
@@ -82,9 +81,9 @@ def test_sharded_forced_run_has_zero_collectives():
     in-scan climatology interpolation + per-record env cache) must also
     compile to zero collectives — the forcing series shards like a
     snapshot and every record-boundary refresh happens on-chip."""
-    from ocean_bgc_tpu.models.forcing_series import stack_forcings
-    from ocean_bgc_tpu.parallel.sharding import (make_sharded_forced_run,
-                                                 col_sharding_tree)
+    from ocean_bgc.models.forcing_series import stack_forcings
+    from ocean_bgc.parallel.sharding import (make_sharded_forced_run,
+                                             col_sharding_tree)
     import jax
 
     mesh = make_mesh()
